@@ -75,7 +75,7 @@ def _cfg(args) -> CodecConfig:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="qsvc",
-                                 description="TPU-native scalable video codec")
+                                 description="scalable wavelet video codec")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     pc = sub.add_parser("compress", help="encode a raw YUV420 video")

@@ -1,6 +1,7 @@
 """ctypes bridge to the native EBCOT fast path (``native/ebcot.cpp``).
 
-Builds ``libqsvc.so`` on first use (g++ -O3 -fopenmp) and exposes
+Builds ``libqsvc-<key>.so`` on first use (g++ -O3 -fopenmp) into the
+gitignored ``native/build/`` and exposes
 ``encode_codeblock`` / ``decode_codeblock`` drop-ins for :mod:`.tier1`,
 plus OpenMP-batched variants used by the frame codec.  Falls back to the
 Python reference implementation if the toolchain is unavailable
@@ -10,15 +11,16 @@ Python reference implementation if the toolchain is unavailable
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
-import sys
 import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from . import tier1
+from ..utils import cachedir
 from .tier1 import CodeblockStream
 
 _BAND_CODE = {"LL": 0, "LH": 0, "HL": 1, "HH": 2}
@@ -29,32 +31,59 @@ _lib_lock = threading.Lock()
 _build_error: Optional[str] = None
 
 
-def _so_path() -> str:
-    return os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                        "native", "libqsvc.so")
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                           "native")
 
 
 def _src_path() -> str:
-    return os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                        "native", "ebcot.cpp")
+    return os.path.join(_NATIVE_DIR, "ebcot.cpp")
+
+
+def _flags() -> List[str]:
+    """Compiler flags; the BMI2 PEXT/PDEP fast path only where this CPU
+    has BMI2 (a ``-mbmi2`` build faults on a CPU without it)."""
+    flags = ["-O3", "-fopenmp", "-shared", "-fPIC"]
+    if "bmi2" in cachedir.cpu_identity().split():
+        flags.append("-mbmi2")
+    return flags
+
+
+def _so_path(flags: Sequence[str]) -> str:
+    """Build product keyed by the source and the flags (not by mtime): a
+    library built from other source or with other flags and copied in
+    with the working tree is never loaded.  The flags carry the one
+    ISA-specific choice (``-mbmi2``)."""
+    h = hashlib.sha256()
+    with open(_src_path(), "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(flags).encode())
+    return os.path.join(_NATIVE_DIR, "build",
+                        f"libqsvc-{h.hexdigest()[:16]}.so")
 
 
 def _build() -> Optional[str]:
-    so = _so_path()
-    src = _src_path()
-    if (os.path.exists(so)
-            and os.path.getmtime(so) >= os.path.getmtime(src)):
+    global _build_error
+    flags = _flags()
+    so = _so_path(flags)
+    if os.path.exists(so):
         return so
-    base = ["g++", "-O3", "-fopenmp", "-shared", "-fPIC", src, "-o", so]
-    for extra in (["-mbmi2"], []):   # BMI2 PEXT/PDEP fast path if available
-        try:
-            subprocess.run(base[:2] + extra + base[2:], check=True,
-                           capture_output=True, timeout=300)
-            return so
-        except Exception as e:  # toolchain missing / compile error
-            global _build_error
-            _build_error = f"{type(e).__name__}: {e}"
-    return None
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    # build under a private name and rename: concurrent builds (test
+    # workers) never load a half-written library
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        subprocess.run(["g++", *flags, _src_path(), "-o", tmp], check=True,
+                       capture_output=True, timeout=300)
+        os.replace(tmp, so)
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", b"") or b""
+        _build_error = (f"{type(e).__name__}: {e} "
+                        f"{detail.decode(errors='replace')[-2000:]}").strip()
+        return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return so
 
 
 def _load():

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native QSVC codec.
+"""Typed configuration for the QSVC codec.
 
 This is the single config schema of the framework, replacing the reference's
 three-tier flag system (env-var codec registry + ``MCTF_parser.py`` argparse

@@ -1,6 +1,7 @@
 """Hierarchical bidirectional block-matching motion estimation.
 
-Re-creates ``trunk/src/motion_estimate.cpp`` (FAST_SEARCH path) TPU-first:
+Re-creates ``trunk/src/motion_estimate.cpp`` (FAST_SEARCH path) as
+batched array code:
 
 * a 5/3 packed DWT pyramid of depth ``round(log2(search_range)) - 1`` over
   predicted and both reference lumas (``motion_estimate.cpp:277-285``);
@@ -20,8 +21,8 @@ Re-creates ``trunk/src/motion_estimate.cpp`` (FAST_SEARCH path) TPU-first:
 Vectorization: instead of per-block scalar loops, each level performs ONE
 gather per direction of per-block ``(win+2) x (win+2)`` reference patches at
 the current vectors; the 9 spiral probes are then static slices of the
-patches and the SADs are batched reductions — MXU/VPU-friendly, no
-data-dependent control flow.  Out-of-range reads clamp to the edge of the
+patches and the SADs are batched reductions, with no data-dependent
+control flow.  Out-of-range reads clamp to the edge of the
 active LL band (the reference reads stale border/high-band texels there —
 deliberately not replicated; motion fields need no bit parity, they are
 transmitted).
@@ -31,7 +32,6 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -159,32 +159,9 @@ def _refine_level_batch(preds: jnp.ndarray, prevs: jnp.ndarray,
     """Batched spiral refinement of a whole level's frame pairs.
 
     ``preds``/``prevs``/``nexts``: (P, H', W') lumas whose active region
-    is (ny, nx); ``mv``: (P, 2, 2, By, Bx).  Uses the fused Pallas SAD
-    kernel on TPU when the geometry allows (ops/pallas_me.py), the
-    vmapped lax patch-gather formulation otherwise; both are
-    bit-identical (same spiral order, tie rule and clamped reads)."""
-    from ..ops import pallas_me
-    P, _, _, By, Bx = mv.shape
-    bs = block_size
-    if (jax.default_backend() != "cpu" and Bx <= 128
-            and pallas_me.supported(bs, border, max_mv)):
-        fx = pallas_me._fx(bs)
-        bxp = -(-Bx // fx) * fx
-        if bxp <= 128:
-            def pad_img(x):
-                act = x[:, :ny, :nx].astype(jnp.int32)
-                return jnp.pad(
-                    act, ((0, 0), (bs, By * bs + bs - ny),
-                          (fx * bs, bxp * bs + fx * bs - nx)), mode="edge")
-            mvp = jnp.pad(mv, ((0, 0), (0, 0), (0, 0), (0, 0),
-                               (0, bxp - Bx)))
-            d = pallas_me.refine_pallas(pad_img(preds), pad_img(prevs),
-                                        pad_img(nexts), mvp, bs)[..., :Bx]
-            upd = jnp.stack([jnp.stack([d[:, 0], d[:, 1]], axis=1),
-                             jnp.stack([d[:, 2], d[:, 3]], axis=1)], axis=1)
-            return mv + upd
-    f = partial(_refine_level, block_size=bs, border=border, ny=ny, nx=nx,
-                max_mv=max_mv)
+    is (ny, nx); ``mv``: (P, 2, 2, By, Bx)."""
+    f = partial(_refine_level, block_size=block_size, border=border, ny=ny,
+                nx=nx, max_mv=max_mv)
     return jax.vmap(f)(preds, prevs, nexts, mv)
 
 
@@ -217,8 +194,7 @@ def estimate_sequence(evens: jnp.ndarray, odds: jnp.ndarray,
     Batched end to end: the DWT pyramid is built ONCE per frame stack
     (each interior even frame previously downsampled twice, once as PREV
     and once as NEXT of adjacent pairs), and each refinement level runs
-    all pairs through one fused Pallas SAD kernel on TPU
-    (ops/pallas_me.py) or one vmapped gather formulation elsewhere.
+    all pairs through one vmapped gather formulation.
     """
     P = odds.shape[0]
     H, W = odds.shape[-2], odds.shape[-1]

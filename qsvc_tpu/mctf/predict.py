@@ -1,6 +1,6 @@
 """MCTF predict lifting step (forward = decorrelate, inverse = correlate).
 
-Re-creates ``trunk/src/decorrelate.cpp`` TPU-first:
+Re-creates ``trunk/src/decorrelate.cpp`` as batched array code:
 
 * chroma planes are interpolated to luma resolution by zero-stuffing the
   packed high bands and running one 5/3 synthesis (decorrelate.cpp:591-648),
@@ -70,8 +70,9 @@ def _mc_gather(ref: jnp.ndarray, mv_y: jnp.ndarray, mv_x: jnp.ndarray,
                block_size: int, border: int) -> jnp.ndarray:
     """Motion-compensated gather: ``out`` block (i,j) = the ``ref`` block
     shifted by that block's vector, with edge replication ``border`` pixels
-    deep.  One XLA gather with block-sized slices (per-pixel index gathers
-    are ~100x slower on TPU).
+    deep.  One XLA gather with block-sized slices: each block row is a
+    contiguous load, where a per-pixel index gather reads element by
+    element.
 
     ``mv_y``/``mv_x``: (By, Bx) block-constant vectors, |mv| <= border.
     """
@@ -105,24 +106,11 @@ def predict_frames_batch(refs_prev: jnp.ndarray, refs_next: jnp.ndarray,
                          ) -> jnp.ndarray:
     """Batched bidirectional prediction of a level's frame pairs.
 
-    ``refs_*``: (P, C, H, W); ``mv``: (P, 2, 2, By, Bx).  Uses the fused
-    Pallas MC kernel on TPU when the geometry allows (see
-    ops/pallas_mc.py), the vmapped lax gather otherwise; both are
-    bit-identical.
+    ``refs_*``: (P, C, H, W); ``mv``: (P, 2, 2, By, Bx).
     """
     if block_overlaping > 0:
         return _predict_frames_ola(refs_prev, refs_next, mv, block_size,
                                    search_range, block_overlaping)
-    from ..ops import pallas_mc
-    H, W = refs_prev.shape[-2], refs_prev.shape[-1]
-    if (jax.default_backend() != "cpu"
-            and pallas_mc.supported(H, W, block_size, search_range)):
-        bs = block_size
-        fxp = pallas_mc._fx(bs)
-        pad = [(0, 0), (0, 0), (bs, bs), (fxp * bs, fxp * bs)]
-        return pallas_mc.predict_pallas(
-            jnp.pad(refs_prev, pad, mode="edge"),
-            jnp.pad(refs_next, pad, mode="edge"), mv, bs)
     border = 4 * search_range + block_overlaping
     return jax.vmap(partial(predict_frame, block_size=block_size,
                             border=border))(refs_prev, refs_next, mv)

@@ -10,7 +10,7 @@ step (update.cpp:482-501,632-643; the residue interpolation is the intended
 ``UPDATE_STEP`` path — without it the reference indexes stale memory beyond
 the chroma quadrant, a latent bug we do not replicate).
 
-TPU-first deviation (documented): the reference applies block updates
+Deviation (documented): the reference applies block updates
 sequentially with a clamp after every accumulation, so colliding
 destinations (possible once vectors differ between blocks, or at clipped
 frame borders) depend on block order.  Here all contributions are
@@ -23,13 +23,14 @@ encode/decode stay mirrored.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 
 from ..ops import blocks
-from .predict import mv_to_pixel_map, upsample_chroma, downsample_chroma
+from .predict import upsample_chroma
 
 
 def _update_field(residue_444: jnp.ndarray, mv_dir_y: jnp.ndarray,
@@ -42,15 +43,13 @@ def _update_field(residue_444: jnp.ndarray, mv_dir_y: jnp.ndarray,
     Returns the (C, H, W) int32 sum of ``floor(residue * update_factor)``
     at motion-compensated destinations (update.cpp:88-146).
 
-    TPU-native formulation: instead of a scatter (HBM-serialized on TPU —
-    and the op that made the naive port 100x slower than the rest of the
-    transform combined), the scatter is inverted into a **gather**: a
-    destination pixel ``p`` receives block ``b``'s contribution iff
-    ``p - mv_b`` lands inside ``b``.  Since vectors are block-constant and
-    bounded by the search range, only block offsets within
-    ``K = ceil(max|mv| / block_size)`` of ``p``'s own block can contribute,
-    so the update is a sum of ``(2K+1)^2`` masked shifted gathers — fully
-    vectorized VPU work.
+    Formulation: the scatter is inverted into a **gather**, which is
+    deterministic and needs no atomics: a destination pixel ``p``
+    receives block ``b``'s contribution iff ``p - mv_b`` lands inside
+    ``b``.  Since vectors are block-constant and bounded by the search
+    range, only block offsets within ``K = ceil(max|mv| / block_size)``
+    of ``p``'s own block can contribute, so the update is a sum of
+    ``(2K+1)^2`` masked shifted gathers.
 
     Semantics deviations (documented): contributions whose destination
     falls outside the frame are dropped rather than clipped onto the border
@@ -119,24 +118,7 @@ def update_fields_batch(res444: jnp.ndarray, mv_y: jnp.ndarray,
     """Batched accumulated update for one direction over a level's pairs.
 
     ``res444``: (P, C, H, W) unbiased residues; ``mv_*``: (P, By, Bx).
-    Uses the fused Pallas MC update kernel on TPU when the geometry
-    allows (ops/pallas_mc.py), the lax inverse-gather otherwise; both are
-    bit-identical.
     """
-    from ..ops import pallas_mc
-    H, W = res444.shape[-2], res444.shape[-1]
-    if (jax.default_backend() != "cpu"
-            and pallas_mc.supported(H, W, block_size, search_range)):
-        bs = block_size
-        fxp = pallas_mc._fx(bs)
-        contrib = jnp.floor(res444.astype(jnp.float32)
-                            * jnp.float32(update_factor)).astype(jnp.int16)
-        cp = jnp.pad(contrib, [(0, 0), (0, 0), (bs, bs),
-                               (fxp * bs, fxp * bs)])
-        mvy = jnp.pad(mv_y, [(0, 0), (1, 1), (1, 1)])
-        mvx = jnp.pad(mv_x, [(0, 0), (1, 1), (1, 1)])
-        return pallas_mc.update_pallas(cp, mvy, mvx, bs)
-    from functools import partial
     return jax.vmap(partial(_update_field, block_size=block_size,
                             update_factor=update_factor,
                             search_range=search_range))(res444, mv_y, mv_x)
@@ -149,24 +131,7 @@ def update_fields_batch2(res444: jnp.ndarray, mv: jnp.ndarray,
     """Accumulated update for BOTH directions of a level's pairs.
 
     ``res444``: (P, C, H, W) unbiased residues; ``mv``: (P, 2, 2, By, Bx).
-    On TPU both directions run in ONE fused Pallas kernel sharing the
-    contribution staging (ops/pallas_mc.update2_pallas); elsewhere it
-    falls back to the per-direction lax inverse-gather.  Returns
-    ``(upd_prev, upd_next)``, bit-identical to two
-    :func:`update_fields_batch` calls."""
-    from ..ops import pallas_mc
-    H, W = res444.shape[-2], res444.shape[-1]
-    if (jax.default_backend() != "cpu"
-            and pallas_mc.supported(H, W, block_size, search_range)):
-        bs = block_size
-        fxp = pallas_mc._fx(bs)
-        contrib = jnp.floor(res444.astype(jnp.float32)
-                            * jnp.float32(update_factor)).astype(jnp.int16)
-        cp = jnp.pad(contrib, [(0, 0), (0, 0), (bs, bs),
-                               (fxp * bs, fxp * bs)])
-        mvp = jnp.pad(mv, [(0, 0), (0, 0), (0, 0), (1, 1), (1, 1)])
-        both = pallas_mc.update2_pallas(cp, mvp, bs)
-        return both[:, 0], both[:, 1]
+    Returns ``(upd_prev, upd_next)``."""
     return (update_fields_batch(res444, mv[:, 0, 0], mv[:, 0, 1], block_size,
                                 update_factor, search_range),
             update_fields_batch(res444, mv[:, 1, 0], mv[:, 1, 1], block_size,

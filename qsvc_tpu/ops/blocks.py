@@ -3,9 +3,9 @@
 The MC predict/update steps read, for every block of the destination
 frame, one block-sized patch of a reference at a block-constant motion
 offset.  Expressed as per-pixel index-array gathers XLA lowers this to an
-elementwise gather (seconds per 1080p frame on TPU); expressed as a
-vmapped ``lax.dynamic_slice`` it lowers to a gather with big contiguous
-slice sizes — two orders of magnitude faster.  These helpers are the
+elementwise gather; expressed as a vmapped ``lax.dynamic_slice`` it
+lowers to a gather with big contiguous slice sizes, whose rows are
+contiguous loads.  These helpers are the
 framework-wide building blocks for that pattern (ME spiral patches, MC
 predict, MC update inverse-gather).
 """

@@ -2,8 +2,8 @@
 
 The reference allocates frames with a margin and replicates the nearest
 pixel into it (``texture.cpp:34-113`` ``alloc``/``fill_border``); motion
-search and compensation then index freely into the margin.  On TPU we keep
-frames un-padded in HBM and materialize the padded view functionally with
+search and compensation then index freely into the margin.  Here frames
+stay un-padded in device memory and the padded view is materialized with
 ``jnp.pad(mode="edge")`` just before the ops that need it — XLA fuses the
 pad into the consumer.
 """

@@ -8,7 +8,7 @@ high half in the remaining ``floor(n/2)``.  After L levels the top-left
 packed around it — exactly the layout the reference's hierarchical motion
 estimation and interpolation code indexes into.
 
-TPU-first: every lifting step is a whole-axis vectorized op (see
+Every lifting step is a whole-axis vectorized op (see
 ``lifting.py``); batch axes broadcast, so a (frames, H, W) stack transforms
 in one fused XLA computation — no per-line loops, no host round trips.
 
@@ -43,8 +43,8 @@ def _fwd_axis(x: jnp.ndarray, filt: str, axis: int) -> jnp.ndarray:
     """One packed forward 1D transform along ``axis`` (low | high layout).
 
     The 5/3 and 9/7 banks run natively along either of the last two axes
-    (sublane-strided slicing); the column pass previously went through
-    ``moveaxis`` — two full relayouts of the frame stack per level."""
+    (strided slicing of the row axis), so the column pass needs no
+    ``moveaxis`` relayout of the frame stack."""
     if axis in (-1, -2) and filt in lifting.AXIS_AWARE:
         l, h = lifting.fwd(filt, x, axis=axis)
         return jnp.concatenate([l, h], axis=axis)

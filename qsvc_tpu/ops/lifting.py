@@ -7,15 +7,15 @@ values with **C truncating division** (round toward zero), separate even- and
 odd-length boundary rules, and perfect reconstruction.
 
 Instead of the reference's scalar per-sample loops, each lifting step is a
-whole-axis vector operation (VPU-friendly on TPU): the signal is split into
+whole-axis vector operation: the signal is split into
 even/odd phases, the predict/update steps are shifted adds, and truncating
 division is ``lax.div`` (XLA signed integer division truncates toward zero,
 matching C).  All functions operate on the **last axis** and broadcast over
 any leading batch axes, so frames/rows/fields vectorize for free.
 
-Arrays are int32 on device (TPU has no efficient int16); the reference's
+Lifting steps compute in the input's integer dtype; the reference's
 ``short`` arithmetic never overflows 16 bits for 8-bit texture / small MV
-inputs, so values are identical.
+inputs, so values are identical in int16 or int32.
 """
 
 from __future__ import annotations
@@ -35,11 +35,9 @@ def tdiv(x: jnp.ndarray, d: int) -> jnp.ndarray:
 
 def _ops(axis: int):
     """Axis-aware slice/concat helpers: the 5/3 and 9/7 banks run
-    natively along the last OR the second-to-last axis.  The generic 2D
-    driver previously ran column passes via ``moveaxis`` — two full
-    relayouts of the frame stack per level; sublane-strided slicing
-    avoids them entirely (axis=-2 simply appends a ``:`` to every
-    index)."""
+    natively along the last OR the second-to-last axis, so the 2D transform
+    needs no ``moveaxis`` relayout for column passes (axis=-2 simply
+    appends a ``:`` to every index)."""
     if axis == -1:
         return (lambda x, s: x[..., s],
                 lambda parts: jnp.concatenate(parts, axis=-1))

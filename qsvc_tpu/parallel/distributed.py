@@ -12,8 +12,8 @@ Here the sequence's GOP axis shards over every chip of every host:
 * ``make_gop_mesh()`` builds a 1D ``gop`` mesh over the global devices
   in process order — consecutive GOPs land on chips of the same host,
   so the MCTF boundary-update halos (one frame per temporal level, see
-  parallel/transform.py) ride ICI between local chips and cross DCN
-  only at host boundaries;
+  parallel/transform.py) travel between the devices of one host and
+  cross the network only at host boundaries;
 * ``encode_gops_distributed()`` runs the device-side encode step
   sharded over the mesh, then each HOST entropy-codes only the GOPs
   resident on its local devices (the per-code-block EBCOT work never
@@ -24,13 +24,14 @@ Here the sequence's GOP axis shards over every chip of every host:
 
 Single-process fallback: with no distributed runtime every helper
 degrades to the local-device mesh, so the same code path serves the
-8-virtual-device CPU tests, the driver's dry run, and a real pod slice.
+8-virtual-device CPU tests, the multi-device dry run, and the GPUs of
+one host.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -40,6 +41,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import CodecConfig
 from ..io.yuv import Video
+from ..utils import trace
 from . import mesh as pmesh
 from . import transform as ptransform
 
@@ -67,8 +69,8 @@ def initialize(coordinator_address: Optional[str] = None,
 def make_gop_mesh(n_devices: Optional[int] = None) -> Mesh:
     """1D ``gop`` mesh over the GLOBAL device list in process order
     (``jax.devices()`` already sorts by process), so each host owns a
-    contiguous run of GOPs and inter-host halo traffic crosses DCN only
-    at the two run boundaries."""
+    contiguous run of GOPs and inter-host halo traffic crosses the
+    network only at the two run boundaries."""
     devs = jax.devices()
     n = n_devices or len(devs)
     return Mesh(np.array(devs[:n]), ("gop",))
@@ -114,17 +116,38 @@ def encode_gops_distributed(video: Video, cfg: CodecConfig,
                   if mesh.devices.ravel()[i // k].process_index
                   == jax.process_index()]
 
-    payloads: List[Tuple[int, bytes]] = []
-    for g in local_gops:
-        chunk = Video(np.asarray(video.y[g * S:(g + 1) * S + 1]),
-                      np.asarray(video.u[g * S:(g + 1) * S + 1]),
-                      np.asarray(video.v[g * S:(g + 1) * S + 1]))
-        vs = api.compress(chunk, gop_cfg, reversible=reversible)
-        payloads.append((g, vs.to_bytes()))
+    chunks = {g: Video(*(np.asarray(p[g * S:(g + 1) * S + 1])
+                         for p in video.planes())) for g in local_gops}
+    if gop_cfg.texture_backend != "internal":
+        # alternative texture backends are host codecs (codec/backends.py)
+        payloads: List[Tuple[int, bytes]] = [
+            (g, api.compress(c, gop_cfg, reversible=reversible).to_bytes())
+            for g, c in chunks.items()]
+    else:
+        # each GOP is uploaded to and encoded on the mesh device that owns
+        # it; all local GOPs are dispatched before any is drained, so the
+        # devices run concurrently while the host entropy-codes in order
+        devs = mesh.devices.ravel()
+        pendings = {}
+        for g, c in chunks.items():
+            with jax.default_device(devs[g // k]):
+                pendings[g] = api.compress_dispatch(c, gop_cfg,
+                                                    reversible=reversible)
+            _record_placement("encode_gops_distributed", g, pendings[g])
+        payloads = [(g, api.compress_finish(p).to_bytes())
+                    for g, p in pendings.items()]
 
     if jax.process_count() == 1:
         return [p for _, p in sorted(payloads)]
     return _allgather_indexed_bytes(payloads, G)
+
+
+def _record_placement(path: str, gop: int, pending: dict) -> None:
+    """Trace event naming the devices that hold one GOP's dispatched
+    encode (its compacted code-block stacks)."""
+    devs = (pending["pend_l"][1].devices() | pending["pend_c"][1].devices())
+    trace.event("distributed.gop_devices", path=path, gop=gop,
+                devices=sorted(d.id for d in devs))
 
 
 def _allgather_indexed_bytes(payloads: List[Tuple[int, bytes]],
@@ -226,6 +249,7 @@ def compress_distributed(video: Video, cfg: CodecConfig,
                          levels)
         pendings[c] = api._dispatch_stream(sub, ccfg, reversible, delta,
                                            lossless, coder)
+        _record_placement("compress_distributed", c, pendings[c])
     frags = {c: api.compress_finish(p) for c, p in sorted(pendings.items())}
 
     if jax.process_count() > 1:
@@ -249,18 +273,17 @@ def measure_scaling(n_devices: int, reps: int = 2,
                     cfg: Optional[CodecConfig] = None) -> dict:
     """Scaling-efficiency harness: fps of the device encode step on ONE
     device vs ``n_devices`` (same per-GOP work), on whatever backend is
-    active (CPU mesh in tests, chips on a pod).  Returns
+    active (a CPU mesh in tests, GPUs on a multi-GPU host).  Returns
     ``{fps_1, fps_n, efficiency}`` where efficiency =
     fps_n / (n * fps_1).
 
     The default config is deliberately non-toy (512x512, TRLs=3, real
     search): at the old 64x64 size XLA-CPU dispatch overhead swamped the
-    compute and the ratio measured noise (VERDICT r3).  NOTE on CPU
+    compute and the ratio measured noise.  NOTE on CPU
     meshes: the N virtual devices share the host's physical cores, so
     fps_n is core-bound once N reaches the core count — efficiency there
     measures the sharded program's overhead (collectives, skew) only up
-    to N <= cores; tools/scaling_bench.py records the core count with
-    the artifact."""
+    to N <= cores."""
     import time
     from ..io import synthetic_video
 

@@ -6,8 +6,9 @@ axis of a ``jax.sharding.Mesh``: the sequence ``GOPs*S+1`` frames is
 reshaped to ``(GOPs, S+1, ...)`` with the shared boundary frame duplicated
 (the open-GOP rule, GOP.py:22-23 / analyze.py:110-112), sharded over the
 ``gop`` axis, and the only cross-device traffic is the boundary frame's
-MCTF update halo (see :mod:`.transform`), exchanged with ``ppermute`` over
-ICI.
+MCTF update halo (see :mod:`.transform`), exchanged with ``ppermute``.
+The mesh is 1D: the GPUs of one host are joined all to all, so no device
+order is closer than another.
 """
 
 from __future__ import annotations

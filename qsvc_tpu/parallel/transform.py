@@ -1,5 +1,5 @@
-"""Distributed MCTF: GOPs sharded over a device mesh, boundary halos over
-ICI collectives.
+"""Distributed MCTF: GOPs sharded over a device mesh, boundary halos
+exchanged with collectives.
 
 Each device runs the full per-GOP temporal transform locally (split, ME,
 predict — all intra-GOP by construction, since a GOP carries both of its
@@ -23,8 +23,11 @@ Synthesis mirrors the same pattern with subtraction.  With
 embarrassingly parallel.
 
 Usage: ``shard_map`` over the ``gop`` mesh axis with one GOP per device
-(the driver's multi-chip dry run), or vmap-within-device for more GOPs
-than devices.
+(the multi-device dry run), or vmap-within-device for more GOPs
+than devices.  ``analyze_sharded`` and ``synthesize_sharded`` are each
+one jitted program: a ``shard_map`` called outside ``jit`` runs eagerly,
+compiling and dispatching every primitive on its own, as
+``encode_step_sharded`` (the scaling harness's step) still does.
 """
 
 from __future__ import annotations
@@ -193,6 +196,7 @@ def _synthesize_local(stream: MCTFStream, cfg: CodecConfig, axis_name: str):
     return low
 
 
+@partial(jax.jit, static_argnames=("cfg", "mesh", "axis"))
 def analyze_sharded(y, u, v, cfg: CodecConfig, mesh: Mesh,
                     axis: str = "gop"):
     """Distributed forward MCTF.
@@ -221,6 +225,7 @@ def analyze_sharded(y, u, v, cfg: CodecConfig, mesh: Mesh,
                      out_specs=spec, check_vma=False)(y, u, v)
 
 
+@partial(jax.jit, static_argnames=("cfg", "mesh", "axis"))
 def synthesize_sharded(stream, cfg: CodecConfig, mesh: Mesh,
                        axis: str = "gop"):
     """Distributed inverse MCTF on a per-chunk stream pytree.  (The

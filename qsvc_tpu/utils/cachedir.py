@@ -1,13 +1,17 @@
-"""Machine-keyed persistent-compile-cache directory.
+"""Host CPU identity, for artefacts that hold machine code.
 
-XLA:CPU persistent-cache entries contain AOT machine code; loading an
-entry compiled on a host with different vector extensions crashes
-(observed: a full-suite segfault in ``compilation_cache.
-get_executable_and_time`` deserializing entries a different machine —
-avx512 feature set — had written into ``tests/.jax_cache`` on the
-shared filesystem).  Keying the cache directory by the host's CPU
-fingerprint keeps each machine's entries separate while still sharing
-the path convention."""
+XLA:CPU persistent-cache entries are AOT machine code for the host that
+compiled them.  Loading one on a host with a different CPU can crash
+(observed: a full-suite segfault in
+``compilation_cache.get_executable_and_time`` deserializing entries a
+different machine — avx512 feature set — had written into
+``tests/.jax_cache`` on a shared filesystem).  The test suite therefore
+keys its XLA:CPU compile cache with :func:`machine_cache_dir`; the
+program's own cache follows ``JAX_COMPILATION_CACHE_DIR`` or the fixed
+default set in the package ``__init__``, independent of the host.
+
+The native entropy coder (``native/ebcot.cpp``) reads
+:func:`cpu_identity` to choose its one ISA-specific flag (``-mbmi2``)."""
 
 from __future__ import annotations
 
@@ -16,15 +20,16 @@ import os
 import platform
 
 
-def machine_cache_dir(base: str) -> str:
-    key = platform.machine()
+def cpu_identity() -> str:
+    """The first processor block's vendor, model, stepping and ISA flags.
+
+    Hashes the model identity as well as the flags: XLA:CPU bakes
+    model-derived tuning pseudo-features (e.g. +prefer-no-gather) into AOT
+    entries, so two hosts with identical flag sets but a different
+    model/stepping still produce incompatible entries (observed: a
+    foreign-entry load warning under a flags-only key)."""
+    ident = []
     try:
-        # hash ISA flags AND the model identity: XLA:CPU bakes
-        # model-derived tuning pseudo-features (e.g. +prefer-no-gather)
-        # into AOT entries, so two hosts with identical flag sets but
-        # different model/stepping still produce incompatible entries
-        # (observed: foreign-entry load warning under a flags-only key)
-        ident = []
         with open("/proc/cpuinfo") as f:
             for line in f:
                 if line.startswith(("flags", "Features", "vendor_id",
@@ -32,12 +37,22 @@ def machine_cache_dir(base: str) -> str:
                     ident.append(line.strip())
                 if line.strip() == "" and ident:
                     break               # first processor block only
-        if ident:
-            key += "-" + hashlib.sha1(
-                "\n".join(ident).encode()).hexdigest()[:12]
     except OSError:
         pass
-    path = os.path.join(base, key)
+    return "\n".join(ident)
+
+
+def host_fingerprint() -> str:
+    """Architecture plus a short hash of :func:`cpu_identity`."""
+    key = platform.machine()
+    ident = cpu_identity()
+    if ident:
+        key += "-" + hashlib.sha1(ident.encode()).hexdigest()[:12]
+    return key
+
+
+def machine_cache_dir(base: str) -> str:
+    path = os.path.join(base, host_fingerprint())
     os.makedirs(path, exist_ok=True)
     return path
 

@@ -118,7 +118,7 @@ def test_encode_gops_distributed_single_process():
 
 def test_distributed_semantics_match_local_paths():
     """Both distributed semantics are byte-identical to their local
-    equivalents (VERDICT r3 item 2 — no ambiguity left):
+    equivalents:
 
     * ``compress_distributed`` (halo-exact open-GOP, ppermute-coupled
       update) == sequential whole-sequence ``api.compress``;
@@ -149,13 +149,13 @@ def test_distributed_semantics_match_local_paths():
 def test_scaling_harness_reports_efficiency():
     """Efficiency floor on the CPU mesh at n == physical core count.
 
-    Methodology (see tools/scaling_bench.py): virtual devices share the
+    Methodology: virtual devices share the
     host cores, so n must not exceed them for the ratio to measure the
     sharded program's overhead (collectives, skew) rather than core
     scarcity; 128x128 keeps XLA-CPU compile time testable while staying
     far from the dispatch-overhead regime that made the old 64x64 toy
-    number noise (VERDICT r3).  The floor is deliberately below the
-    >=0.8 pod target: XLA-CPU splits each device's intra-op work across
+    number noise.  The floor is deliberately low: XLA-CPU splits each
+    device's intra-op work across
     the SAME shared thread pool, so some cross-device interference is
     inherent to the emulation."""
     import os
@@ -167,7 +167,7 @@ def test_scaling_harness_reports_efficiency():
                             update_factor=0.25, SRLs=3)
     r = pdist.measure_scaling(n, reps=2, cfg=cfg)
     assert r["fps_1"] > 0 and r["fps_n"] > 0
-    # quiet-box measurement: 0.712 at n=2 (SCALING_r04.json).  The floor
+    # a quiet CPU host measured 0.712 at n=2.  The floor
     # sits well below that because in-suite timing shares the host with
     # whatever pytest ran before; it still catches a broken halo path,
     # which serializes the devices (efficiency ~0.5/n).

@@ -122,3 +122,20 @@ def test_mctf_jit_compiles():
     stream = transform.analyze_jit(y, u, v, cfg)
     ry, ru, rv = transform.synthesize_jit(stream, cfg)
     assert ry.shape == y.shape
+
+
+def test_update_fields_batch2_matches_single(rng):
+    """update_fields_batch2 == two update_fields_batch calls."""
+    from qsvc_tpu.mctf import update
+    P, H, W, BS, SR = 2, 64, 256, 16, 4
+    res = rng.integers(-128, 128, (P, 3, H, W)).astype(np.int16)
+    mv = rng.integers(-SR, SR + 1,
+                      (P, 2, 2, H // BS, W // BS)).astype(np.int32)
+    up, un = update.update_fields_batch2(jnp.asarray(res), jnp.asarray(mv),
+                                         BS, 0.25, SR)
+    wp = update.update_fields_batch(jnp.asarray(res), jnp.asarray(mv[:, 0, 0]),
+                                    jnp.asarray(mv[:, 0, 1]), BS, 0.25, SR)
+    wn = update.update_fields_batch(jnp.asarray(res), jnp.asarray(mv[:, 1, 0]),
+                                    jnp.asarray(mv[:, 1, 1]), BS, 0.25, SR)
+    np.testing.assert_array_equal(np.asarray(up), np.asarray(wp))
+    np.testing.assert_array_equal(np.asarray(un), np.asarray(wn))

@@ -4,9 +4,8 @@ temporally-redundant content.
 The reference's whole purpose is RD performance (its evidence is the
 ``tests/RD-*.sh`` sweeps vs external codecs); this is the rebuild's
 equivalent, with OpenJPEG (the Tier-1/Tier-2 interop oracle) coding the
-same frames intra at the same byte budget.  The full multi-sequence /
-multi-rate artifact is produced by ``tools/rd_harness.py`` (RD_r04.json);
-this test pins the core claim at one operating point per coder.
+same frames intra at the same byte budget.  This test pins the core claim
+at one operating point per coder.
 """
 
 import numpy as np
